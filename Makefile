@@ -1,21 +1,19 @@
-# supersampler-tpu build / test / bench entry points.
+# Build / test / bench entry points.
 
-NATIVE_SRC := csrc/spsp_native.c csrc/spsp_finish.c csrc/spsp_io.c
-NATIVE_LIB := build/libspsp_native.so
-CC ?= cc
-
-.PHONY: all native test bench clean
+.PHONY: all native test test-gpu bench clean
 
 all: native
 
-native: $(NATIVE_LIB)
-
-$(NATIVE_LIB): $(NATIVE_SRC)
-	mkdir -p build
-	$(CC) -O3 -march=native -shared -fPIC -o $@ $(NATIVE_SRC) -lm
+# build/libspsp_native-<key>.so, keyed on csrc/, flags and host CPU
+native:
+	python -c "from supersampler_tpu.native import get_lib; assert get_lib() is not None, 'native build failed'"
 
 test: native
 	python -m pytest tests/ -x -q
+
+# the tests that need an NVIDIA GPU (skipped elsewhere)
+test-gpu: native
+	SPSP_TEST_PLATFORM=gpu python -m pytest tests/ -q -m gpu
 
 bench: native
 	python bench.py

@@ -2,11 +2,10 @@
 runs this in a CPU subprocess with 8 forced host devices).
 
 On one host all 8 virtual devices share the same cores, so this does
-NOT measure multi-chip scaling (that needs N real chips / BASELINE.md's
-N-host target); it measures what IS measurable here: the overhead the
-shard_map + psum decomposition adds over the single-device program on
-identical hardware — t8/t1 near 1.0 means the sharded program wastes
-nothing, the precondition for ICI scaling on a real slice.
+NOT measure multi-card scaling (that needs real cards); it measures
+the overhead the shard_map + cross-device sum decomposition adds over
+the single-device program on identical hardware — t8/t1 near 1.0
+means the sharded program wastes nothing.
 
 Prints one JSON line: {"t1_s":..., "t8_s":..., "overhead_ratio":...}.
 """

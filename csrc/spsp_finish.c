@@ -4,7 +4,7 @@
  *
  * The Python oracle (oracle/subsampler.py) is the executable spec;
  * this file replicates its semantics byte-for-byte so the pipeline's
- * host tail (the measured e2e bottleneck) runs at C speed:
+ * host tail runs at C speed:
  *   - per-span intake: orientation, minimizer-string occurrences
  *     (kmerstr.find semantics incl. spurious textual matches),
  *     rolling 128-bit k-mers, insertion-ordered dedup with uint8

@@ -81,7 +81,7 @@ def main(argv=None) -> int:
         # ONE shared device pipeline across all fof entries
         # (sketch_fof): record batches from different files share
         # grouped H2D transfers, fused dispatches and stacked D2H
-        # fetches, amortizing the link round-trip the way the
+        # fetches, amortizing per-transfer costs the way the
         # reference amortizes cores with its OpenMP fan-out
         # (SubSampler.cpp:771-798). -t is accepted for flag parity;
         # the shared pipeline sizes its own worker pools. Per-file

@@ -15,7 +15,7 @@ merge, Comparator.cpp:39-74 + 97-287):
 
 The sorted-array implementation groups identical pairs across files and
 accumulates pairwise counts; a device matmul path (P^T P over presence
-blocks) lives in parallel/compare_dist.py for multi-chip scaling.
+blocks) lives in parallel/compare_dist.py, on one device or a mesh.
 """
 
 from __future__ import annotations
@@ -36,9 +36,9 @@ class TpuComparator:
 
     engine selects the pairwise-scoring backend once the decoded pairs
     are grouped: "numpy" enumerates co-occurrence pairs on host;
-    "device" runs the presence-matmul S = P^T P on the accelerator's
-    MXU (parallel/compare_dist.py), optionally sharded over a mesh with
-    a psum merge. Both produce identical score_A.
+    "device" runs the presence-matmul S = P^T P on the device
+    (parallel/compare_dist.py), optionally sharded over a mesh with
+    one cross-device sum. Both produce identical score_A.
     """
 
     def __init__(self, precision: int = 6, min_threshold: float = 0.0,

@@ -1,6 +1,6 @@
 """Scalar (pure-Python) primitives of the SuperSampler data model.
 
-These are the bit-exact scalar definitions of every primitive the TPU
+These are the bit-exact scalar definitions of every primitive the device
 pipeline vectorizes. They serve three roles:
   1. spec: the single place each operation's semantics is written down,
   2. oracle: tests check the JAX/Pallas kernels against these,

@@ -1,42 +1,72 @@
 """Loader for the native host-runtime library (csrc/spsp_native.c).
 
-The library is built on demand with the system compiler into build/.
-Python fallbacks exist for every entry point so the package works without
-a toolchain, but the native path is authoritative for long-double math.
+The library is built on demand with the system compiler into build/,
+under a name keyed on its sources, its compiler flags and the host CPU:
+a checkout copied to another machine (or a source edit) builds its own
+library instead of loading one compiled for another CPU. Python
+fallbacks exist for every entry point so the package works without a
+toolchain, but the native path is authoritative for long-double math.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_ROOT, "csrc", "spsp_native.c")
-_SRC_FINISH = os.path.join(_ROOT, "csrc", "spsp_finish.c")
-_SRC_IO = os.path.join(_ROOT, "csrc", "spsp_io.c")
-_LIB = os.path.join(_ROOT, "build", "libspsp_native.so")
+_SRCS = [os.path.join(_ROOT, "csrc", f)
+         for f in ("spsp_native.c", "spsp_finish.c", "spsp_io.c")]
+_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def _build() -> bool:
-    os.makedirs(os.path.dirname(_LIB), exist_ok=True)
-    srcs = [_SRC] + [s for s in (_SRC_FINISH, _SRC_IO)
-                     if os.path.exists(s)]
+def _host_cpu() -> str:
+    """The CPU model and feature flags -march=native compiles for."""
+    desc = platform.machine()
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key = line.split(":", 1)[0].strip()
+                if key in ("model name", "flags", "Features"):
+                    desc += "|" + line.strip()
+                if not line.strip() and "|" in desc:
+                    break
+    except OSError:
+        pass
+    return desc
+
+
+def lib_path() -> str:
+    """build/libspsp_native-<key>.so for these sources, flags and CPU."""
+    h = hashlib.sha256()
+    for src in _SRCS:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(_FLAGS).encode())
+    h.update(_host_cpu().encode())
+    return os.path.join(_ROOT, "build",
+                        f"libspsp_native-{h.hexdigest()[:16]}.so")
+
+
+def _build(out: str) -> bool:
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
     for cc in ("cc", "gcc", "g++", "clang"):
         try:
-            r = subprocess.run(
-                [cc, "-O3", "-march=native", "-shared", "-fPIC",
-                 "-o", _LIB] + srcs + ["-lm"],
-                capture_output=True)
-            if r.returncode == 0:
-                return True
+            r = subprocess.run([cc] + _FLAGS + ["-o", tmp] + _SRCS
+                               + ["-lm"], capture_output=True)
         except FileNotFoundError:
             continue
+        if r.returncode == 0:
+            os.replace(tmp, out)      # atomic: concurrent loaders see
+            return True               # a whole library or none
     return False
 
 
@@ -48,32 +78,15 @@ def get_lib():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        stale = not os.path.exists(_LIB)
-        for src in (_SRC, _SRC_FINISH, _SRC_IO):
-            if (not stale and os.path.exists(src)
-                    and os.path.getmtime(src) > os.path.getmtime(_LIB)):
-                stale = True
-        if stale:
-            if not os.path.exists(_SRC):
-                return None
-            if not _build():
-                return None
+        if not all(os.path.exists(s) for s in _SRCS):
+            return None
+        path = lib_path()
+        if not os.path.exists(path) and not _build(path):
+            return None
         try:
-            lib = ctypes.CDLL(_LIB)
+            lib = ctypes.CDLL(path)
         except OSError:
             return None
-        # A lib built without spsp_finish.c/spsp_io.c (e.g. by an old
-        # Makefile) would silently force the slow compat paths: rebuild
-        # once from the full source list rather than degrade.
-        if not hasattr(lib, "spsp_finish_new") and os.path.exists(
-                _SRC_FINISH):
-            del lib
-            if not _build():
-                return None
-            try:
-                lib = ctypes.CDLL(_LIB)
-            except OSError:
-                return None
         lib.spsp_threshold.restype = ctypes.c_uint64
         lib.spsp_threshold.argtypes = [
             ctypes.c_uint64, ctypes.c_uint64, ctypes.c_double]
@@ -84,48 +97,36 @@ def get_lib():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int32, ctypes.c_uint8,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
-        try:
-            lib.spsp_finish_new.restype = ctypes.c_void_p
-            lib.spsp_finish_new.argtypes = [
-                ctypes.c_int, ctypes.c_int, ctypes.c_int]
-            lib.spsp_finish_free.argtypes = [ctypes.c_void_p]
-            lib.spsp_finish_spans.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p]
-            lib.spsp_finish_serialize.restype = ctypes.c_int64
-            lib.spsp_finish_serialize.argtypes = [
-                ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p),
-                ctypes.c_void_p]
-            lib.spsp_finish_release.argtypes = [ctypes.c_char_p]
-        except AttributeError:
-            pass
-        try:
-            lib.spsp_clean_codes.restype = ctypes.c_int64
-            lib.spsp_clean_codes.argtypes = [
-                ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
-                ctypes.c_void_p]
-            lib.spsp_pack_halo.argtypes = [
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                ctypes.c_int64, ctypes.c_int64]
-        except AttributeError:
-            pass
-        try:
-            lib.spsp_clean_pack.restype = ctypes.c_int64
-            lib.spsp_clean_pack.argtypes = [
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64]
-        except AttributeError:
-            pass
-        try:
-            lib.spsp_clean_pack_batch.argtypes = [
-                ctypes.c_void_p] + [ctypes.c_void_p] * 2 \
-                + [ctypes.c_int64] + [ctypes.c_void_p] * 6
-            lib.spsp_finish_spans_batch.argtypes = [
-                ctypes.c_void_p] + [ctypes.c_void_p] * 3 \
-                + [ctypes.c_int64] + [ctypes.c_void_p] * 8
-        except AttributeError:
-            pass
+        lib.spsp_finish_new.restype = ctypes.c_void_p
+        lib.spsp_finish_new.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.spsp_finish_free.argtypes = [ctypes.c_void_p]
+        lib.spsp_finish_spans.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.spsp_finish_serialize.restype = ctypes.c_int64
+        lib.spsp_finish_serialize.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p),
+            ctypes.c_void_p]
+        lib.spsp_finish_release.argtypes = [ctypes.c_char_p]
+        lib.spsp_clean_codes.restype = ctypes.c_int64
+        lib.spsp_clean_codes.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p]
+        lib.spsp_pack_halo.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int64]
+        lib.spsp_clean_pack.restype = ctypes.c_int64
+        lib.spsp_clean_pack.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64]
+        lib.spsp_clean_pack_batch.argtypes = [
+            ctypes.c_void_p] + [ctypes.c_void_p] * 2 \
+            + [ctypes.c_int64] + [ctypes.c_void_p] * 6
+        lib.spsp_finish_spans_batch.argtypes = [
+            ctypes.c_void_p] + [ctypes.c_void_p] * 3 \
+            + [ctypes.c_int64] + [ctypes.c_void_p] * 8
         _lib = lib
         return _lib
 
@@ -137,7 +138,7 @@ class NativeFinisher:
     @staticmethod
     def available() -> bool:
         lib = get_lib()
-        return lib is not None and hasattr(lib, "spsp_finish_new")
+        return lib is not None
 
     def __init__(self, k: int, m: int, abundance: int):
         self._lib = get_lib()
@@ -250,7 +251,7 @@ def clean_pack_native(raw_view, padded: int, halo: int = 128):
     import numpy as np
 
     lib = get_lib()
-    if lib is None or not hasattr(lib, "spsp_clean_pack"):
+    if lib is None:
         return None
     raw_view = np.ascontiguousarray(raw_view, np.uint8)
     n = raw_view.size
@@ -270,7 +271,7 @@ def clean_pack_batch_native(data_view, starts, ends, ref_pool,
     import numpy as np
 
     lib = get_lib()
-    if lib is None or not hasattr(lib, "spsp_clean_pack_batch"):
+    if lib is None:
         return None
     c = lambda a, dt: np.ascontiguousarray(a, dt)
     data_view = c(data_view, np.uint8)
@@ -297,7 +298,7 @@ def clean_codes_native(raw: bytes):
     import numpy as np
 
     lib = get_lib()
-    if lib is None or not hasattr(lib, "spsp_clean_codes"):
+    if lib is None:
         return None
     n = len(raw)
     ref = np.empty(n, np.uint8)
@@ -313,7 +314,7 @@ def pack_halo_native(codes, padded: int, halo: int = 0):
     import numpy as np
 
     lib = get_lib()
-    if lib is None or not hasattr(lib, "spsp_pack_halo"):
+    if lib is None:
         return None
     codes = np.ascontiguousarray(codes, np.uint8)
     out = np.empty((halo + padded) >> 2, np.uint8)

@@ -1,12 +1,10 @@
 """Pointer-doubling event-chain extraction — the walker's TEST ORACLE.
 
-This is the O(log n)-rounds chain extractor that preceded the serial
-Pallas walker (ops/walker.py). The walker is ~43x faster on TPU (full
-random gathers per doubling round vs a serial SMEM chase), so the
-product pipeline uses the walker exclusively; this module is kept as an
-independently-derived implementation of the same chain semantics that
-tests/test_walker.py checks the walker against (two very different
-algorithms agreeing on fuzzed inputs).
+An O(log n)-rounds chain extractor over whole-sequence ScanTables,
+written independently of the walks in ops/walker.py (which take a
+carried entry state and a truncated walk length). tests/test_walker.py
+checks the walker against it: two very different algorithms agreeing
+on fuzzed inputs.
 
 Reference semantics replayed here: the super-k-mer boundary loop of
 Subsampler::parse_fasta_test (reference SubSampler.cpp:401-454).

@@ -1,10 +1,10 @@
 """Sync-segment decomposition of the minimizer-scan state machine.
 
 The reference's streaming loop (SubSampler.cpp:367-440) is a serial
-state machine; rounds 1-2 parallelized the per-position math but still
-extracted the event chain serially (ops/walker.py), which measures as
-~85% of on-chip time. This module removes the serial chain entirely,
-using an exact synchronization theorem:
+state machine; the successor-table engine parallelizes the
+per-position math but still extracts the event chain as a walk
+(ops/walker.py). This module removes the serial chain entirely, using
+an exact synchronization theorem:
 
   THEOREM (safe sync). The machine state after any event at step i
   always holds a minimizer hash h = H[q] for some m-mer position
@@ -26,8 +26,8 @@ reference's update rules verbatim, ties, mirrored positions and all),
 so segments can run in parallel lanes instead of one serial walk.
 
 This file is the NumPy reference implementation (the correctness spec
-fuzz-tested against the scalar oracle); the TPU kernel lives alongside
-in ops/minimizer.py / ops/walker.py consumers.
+fuzz-tested against the scalar oracle); the device version is
+ops/field.py.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 Bit-identical to the reference's minimizer hash (reference
 utils.cpp:244-249 -> include/xxhash64.h:158-163 with length == 8:
 h = seed + Prime5 + 8; one 8-byte round; final avalanche). Carried in
-uint32 limb pairs so it runs on TPU vector lanes.
+uint32 limb pairs (ops/u64.py), so no 64-bit integer types are
+needed on the device.
 
 The minimizer inputs are 2m-bit values (m <= 15 -> fits uint32), so the
 fast path takes a uint32 array directly.

@@ -1,4 +1,4 @@
-"""TPU-vectorized minimizer scan: the compute core of sketch construction.
+"""Vectorized minimizer scan: the compute core of sketch construction.
 
 The reference's per-nucleotide streaming loop (reference
 SubSampler.cpp:367-440) is an inherently sequential state machine, but
@@ -257,9 +257,9 @@ device_scan = jax.jit(scan_tables, static_argnums=(1, 2, 3))
 
 # ----------------------------------------------------------------------
 # 2D-tiled variant: positions laid out as (R, C) rows with a halo of
-# lookahead columns so every per-position op runs on (8,128)-tileable
-# arrays (a flat 1D layout leaves TPU VPU sublanes idle). shift2d(a, d)
-# equals the flat array shifted by d positions.
+# lookahead columns, so every shifted view is a static column slice of
+# a 2D array. shift2d(a, d) equals the flat array shifted by d
+# positions.
 # ----------------------------------------------------------------------
 
 def scan_tables_2d(codes: jnp.ndarray, k: int, m: int, padded_len: int,
@@ -341,7 +341,7 @@ def unpack_2bit(packed: jnp.ndarray, n: int) -> jnp.ndarray:
 
 def pack_2bit_np(codes: np.ndarray) -> np.ndarray:
     """Host-side 4x compaction of 2-bit codes for the H2D transfer
-    (the host link, not HBM, bounds pipeline throughput).
+    (4x fewer bytes over the host-to-device link).
 
     One u32 pass: 4 little-endian code bytes c0..c3 OR-fold into
     c0|c1<<2|c2<<4|c3<<6 (codes < 4, so the shifted fields are
@@ -391,7 +391,7 @@ def _mmer_build_block(c2, m, w_m):
         fwd = (fwd << 2) | c
         rc = rc | ((c ^ 2) << (2 * j))
     rev = rc < fwd
-    # unsigned minimum via select (Mosaic lacks vector umin)
+    # unsigned minimum via select
     canon = jnp.where(rev, rc, fwd)
     return canon, rev, xxh64_u32(canon)
 
@@ -424,7 +424,7 @@ def _mmer_elect_block(c2, k, m, C, halo):
         replace = U.gt(hmin, h)
         tie = (mmer == mini) & ~replace
         same_dir = tie & (local_rev == is_rev)
-        # bool selects written as logical ops (Mosaic-friendly)
+        # bool selects written as logical ops
         tie_take = same_dir & ((is_rev & (pos > i))
                                | (~is_rev & (pos > (k - m - i))))
         take = replace | tie_take
@@ -444,7 +444,7 @@ def _mmer_elect_block(c2, k, m, C, halo):
 
 def _elect_log(canon, rev, hh, W: int, w_e: int):
     """Exact window elections in O(log W) windowed reductions instead
-    of the O(W) fold (VERDICT r4 #2).
+    of the O(W) fold.
 
     Derivation (provably equal to regular_minimizer_pos,
     SubSampler.cpp:81-169, and the scalar spec
@@ -623,12 +623,9 @@ def elect_block_flagged(c2, k, m, C, halo):
     constant-False collision flag.
 
     The O(log W) reduction (_elect_log) is bit-exact (fuzz-pinned in
-    tests/test_scan_2d.py) but measured ~2x SLOWER than the fold on
-    this chip (r5: 6.5 vs 3.2 ms per 4.19 Mbp record, both at C=512
-    and C=1024) — its ragged-width slice/concat steps each force a
-    relayout copy that swamps the ALU savings of 5 log-steps vs 21
-    fold steps. The fold therefore stays the default; SPSP_ELECT=log
-    switches the engine to the reduction for (re-)measurement."""
+    tests/test_scan_2d.py); the fold stays the default until the two
+    are compared on the GPU (ROADMAP G3). SPSP_ELECT=log switches the
+    engine to the reduction for that measurement."""
     if _ELECT_IMPL == "log":
         return _mmer_elect_block_log(c2, k, m, C, halo)
     canon, rev, hh, em, ep, er, eh, h_ent = _mmer_elect_block(

@@ -1,11 +1,11 @@
 """64-bit integer arithmetic as pairs of uint32 lanes.
 
-TPUs have no native 64-bit integer vector ops; every u64 quantity in the
-pipeline (hashes, thresholds) is carried as (hi, lo) uint32 arrays. All
-ops are wrapping mod 2^64, matching C uint64_t semantics.
+Every u64 quantity in the pipeline (hashes, thresholds) is carried as
+(hi, lo) uint32 arrays, so the package runs without jax_enable_x64.
+All ops are wrapping mod 2^64, matching C uint64_t semantics.
 
 Multiplication builds on 16-bit limb products so every partial product
-fits a uint32 lane (TPU int multiplies are 32-bit wrapping).
+fits a uint32 lane (32-bit wrapping multiplies).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Pure-Python bit-exact oracle of the reference pipeline.
 
-Used by the test-suite as ground truth for the TPU kernels, and validated
+Used by the test-suite as ground truth for the device kernels, and validated
 once against the compiled reference binaries via golden files.
 """
 

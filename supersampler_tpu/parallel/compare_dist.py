@@ -1,4 +1,5 @@
-"""Multi-chip all-vs-all comparison: presence-matmul scoring on the MXU.
+"""All-vs-all comparison as presence-matmul scoring, on one device or
+a mesh.
 
 Scoring model: let G be the number of distinct (minimizer, k-mer) pairs
 observed across all N sketches and Pm the (G, N) 0/1 presence matrix.
@@ -6,8 +7,8 @@ Then S = Pm^T Pm has S[i,j] = |pairs shared by files i and j| (the
 reference's score_A, Comparator.cpp:269-287) and S[i,i] =
 nb_kmer_seen_infile[i]. This turns the comparison into batched matmuls:
 pair-rows are tiled into chunks, chunks are sharded across the mesh
-'data' axis, each device accumulates its partial S on the MXU, and one
-psum over ICI merges the N x N partials.
+'data' axis, each device accumulates its partial S with an s8 x s8 ->
+s32 matmul, and one cross-device sum merges the N x N partials.
 """
 
 from __future__ import annotations
@@ -101,16 +102,15 @@ def score_matrix_device(gids: np.ndarray, fids: np.ndarray, n_groups: int,
     memory is bounded by a single (n_dev * chunk_groups, N) int8 block
     regardless of the total group count (gids must be sorted, which
     the grouping construction guarantees) — and accumulated into the
-    N x N score on device. int8 feeds the MXU's s8xs8->s32 path and
-    keeps counts integer-exact. With a mesh, each step's rows are
-    sharded over 'data' and the partial scores merged with a psum over
-    ICI.
+    N x N score on device. int8 operands with int32 accumulation keep
+    counts integer-exact. With a mesh, each step's rows are sharded
+    over 'data' and the partial scores merged with one cross-device
+    sum.
 
     Block row counts are bucketed to powers of two (zero rows score
     zero) so the jitted program's shapes recur across corpora; the jit
-    wrappers live at module scope — a per-call closure retraced and
-    recompiled on every invocation through the remote backend, which
-    is exactly the r4 6.5x comparator regression (VERDICT r4 weak #4).
+    wrappers live at module scope so they are traced and compiled once
+    per shape, not once per call.
     """
     if n_groups == 0 or fids.size == 0:
         return np.zeros((n_files, n_files), dtype=np.int64)

@@ -10,7 +10,7 @@ and the N x N score partials merge with one psum over the global mesh
 (parallel/compare_dist.py). No host ever materializes another host's
 sketches.
 
-Single-process environments (tests, one-chip dev boxes) run the same
+Single-process environments (tests, one-card machines) run the same
 code with process_count == 1; `initialize()` is a no-op there.
 """
 
@@ -24,13 +24,20 @@ import numpy as np
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None) -> None:
+               process_id: Optional[int] = None,
+               local_device_ids: Optional[Sequence[int]] = None) -> None:
     """jax.distributed.initialize, env-driven and idempotent.
 
     On a single process (no coordinator configured) this is a no-op, so
-    every CLI works unchanged on one machine. On a pod slice, set
-    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID (or
-    pass them) before the first jax call.
+    every CLI works unchanged on one machine. For several processes,
+    set JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
+    (or pass them) before the first jax call.
+
+    Cards: by default one process drives every card of its host. To run
+    one process per card instead, pass each process its own
+    `local_device_ids` (e.g. [process_id % cards_per_host]); a JAX
+    process reserves most of a card's memory when it first touches it,
+    so two processes must never share one.
     """
     import jax
 
@@ -43,7 +50,8 @@ def initialize(coordinator_address: Optional[str] = None,
         os.environ.get("JAX_PROCESS_ID", 0))
     try:
         jax.distributed.initialize(coordinator_address=coord,
-                                   num_processes=nproc, process_id=pid)
+                                   num_processes=nproc, process_id=pid,
+                                   local_device_ids=local_device_ids)
     except RuntimeError:
         pass  # already initialized
 

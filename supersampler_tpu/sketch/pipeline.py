@@ -1,4 +1,4 @@
-"""TPU sketch-construction pipeline.
+"""Sketch-construction pipeline.
 
 The per-position hash/election math runs on device (ops/minimizer.py);
 the event chain (super-k-mer boundaries) is extracted from the device's
@@ -18,6 +18,7 @@ import numpy as np
 
 import jax
 
+from supersampler_tpu.backend import engine
 from supersampler_tpu.ops import u64 as U
 from supersampler_tpu.ops.dedup import (dedup_chain_packed,
                                         field_dedup_packed,
@@ -51,19 +52,17 @@ device_scan_field_packed = jax.jit(scan_field_2d_packed,
 @jax.jit
 def _stack_arrs(arrs):
     """Stack same-shaped compact arrays so one D2H transfer fetches a
-    whole record batch (every transfer blocks the in-order device
-    stream for a full link round-trip on this platform)."""
+    whole record batch."""
     return jnp.stack(arrs)
 
 
 def _scan_chain_packed(packed, k: int, m: int, P: int, length, thr_hi,
                        thr_lo, sel_cap_guess: int = 4096) -> DeviceChain:
-    """2D scan + Pallas serial chain walk + speculative compaction —
-    three asynchronous device dispatches, zero host syncs (the walk
-    chases the event chain on the TPU scalar core; ops/walker.py).
+    """2D scan + chain walk + speculative compaction — three
+    asynchronous device dispatches, zero host syncs (ops/walker.py).
 
     Kept as separate jit units: fusing them into one XLA program
-    multiplies CPU-backend compile time ~10x for a ~1 ms dispatch win,
+    multiplies CPU-backend compile time ~10x for a small dispatch win,
     and the intermediate ScanTables never leave the device either way."""
     t = device_scan_2d_packed(packed, k, m, P, length,
                               U.U64(thr_hi, thr_lo))
@@ -290,12 +289,12 @@ class FieldChain:
         self._entry = None
         self.fallback_tiles = []   # tiles that took the walker path
         self.uniques_list = [] if dedup else None
-        # fused single-tile dispatch: scan+entry+resolve as one jit
-        # (one RPC instead of three; measured ~2 ms/record of remote
-        # dispatch latency saved). CPU keeps split dispatches — fusing
-        # multiplies CPU-backend compile time for no dispatch win.
+        # fused single-tile dispatch on the GPU: scan+entry+resolve as
+        # one jit program instead of three. The CPU keeps split
+        # dispatches — fusing multiplies CPU-backend compile time for
+        # no dispatch win.
         self._fused = (n_tiles == 1 and not dedup
-                       and jax.default_backend() == "tpu")
+                       and engine() == "gpu")
         for _ in range(min(window, n_tiles)):
             self._dispatch_one()
 
@@ -471,7 +470,7 @@ class FieldChain:
 
 
 class TpuSubsampler(OracleSubsampler):
-    """Sketch builder whose streaming scan runs on the TPU.
+    """Sketch builder whose streaming scan runs on the device.
 
     Inherits bucket intake, greedy reconstruction, serialization and
     stats from the scalar spec; only scan_sequence is replaced.
@@ -498,18 +497,16 @@ class TpuSubsampler(OracleSubsampler):
     # costs more than it saves.
     device_dedup = None
     # scan engine: "field" = sync-field resolution (ops/field.py) —
-    # walker-free, exact, and the default: with the Mosaic sweep
-    # kernel emitting sparse in-kernel event lists it measures ~806
-    # Mbases/s data-resident vs the walker's ~246 (docs/PERF.md).
-    # "legacy" = successor tables + serial Pallas walker — kept as the
+    # walker-free, exact, and the default. "legacy" = successor
+    # tables + chain walk (ops/walker.py) — kept as the
     # exact fallback (FieldChain re-runs through it automatically when
     # the sync theorem's pass budget overflows, e.g. megabase
     # homopolymers). Both engines are golden-tested.
     scan_engine = "field"
 
     # native (C) host finisher: k-mer store + greedy reconstruction +
-    # serialization in csrc/spsp_finish.c — the host tail is the
-    # measured e2e bottleneck. None = auto (on when the library builds
+    # serialization in csrc/spsp_finish.c — the host tail of every
+    # sketch. None = auto (on when the library builds
     # and the device-dedup path, which owns the Python store, is off).
     native_finisher = None
 
@@ -517,9 +514,8 @@ class TpuSubsampler(OracleSubsampler):
         if self.device_dedup is not None:
             return bool(self.device_dedup)
         # auto: the native C finisher ingests spans faster than the
-        # device dedup's host-side unique merge at every FHS rate
-        # (measured r3: 2-5x), so device dedup is the fallback for
-        # toolchain-less environments only.
+        # device dedup's host-side unique merge at every FHS rate, so
+        # device dedup is the fallback for toolchain-less environments.
         from supersampler_tpu.native import NativeFinisher
 
         if NativeFinisher.available():
@@ -979,10 +975,9 @@ class _SharedSketchRun:
     """Shared multi-file sketch pipeline (fof mode).
 
     ONE prep pool / launcher thread / fetcher thread serves record
-    batches from ALL files, so the platform's scarce quantity — the
-    ~33 ms link round-trip that every D2H (and put-while-busy H2D)
-    costs — is amortized across the whole fof corpus instead of being
-    paid per file: medium records from different files stack into the
+    batches from ALL files, so the per-transfer and per-dispatch costs
+    are amortized across the whole fof corpus instead of being paid
+    per file: medium records from different files stack into the
     same grouped H2D + fused dispatches + ONE stacked D2H fetch, and
     per-file host work (parse, clean+pack, assemble, serialize)
     overlaps other files' device work.  The reference fans fof entries
@@ -990,7 +985,7 @@ class _SharedSketchRun:
     (SubSampler.cpp:771-798); here the device is one shared in-order
     resource, so the sharing must happen at the batch level instead.
 
-    Stages (same machine as the r4 single-file pipeline, generalized):
+    Stages (the single-file pipeline's, generalized):
     per file, the reader thread loads raw bytes and spans records; a
     2-worker prep pool cleans + 2-bit packs each chunk with ONE C call
     per short-record group (spsp_clean_pack_batch) writing rows of the
@@ -1031,7 +1026,7 @@ class _SharedSketchRun:
         self.thr_w = (jnp.uint32(thr >> 32), jnp.uint32(thr & 0xFFFFFFFF))
         self.extra = ss0._tile_extra
         self.select_all = ss0.s <= 1
-        self.on_tpu = jax.default_backend() == "tpu"
+        self.fused_single = engine() == "gpu"
         self.margin = 2 * (2 * self.k - self.m + 2) + 128
         self.short_ok = ss0.scan_engine == "field"
         self.sel_guess = ss0._sel_cap_guess
@@ -1110,8 +1105,8 @@ class _SharedSketchRun:
             return routes, groups
 
     def _dispatch_single(self, slab, L, own, cap):
-        """One single-tile record's compact array: fused program on
-        TPU (one RPC), split dispatches on CPU (fused tracing is
+        """One single-tile record's compact array: one fused program on
+        the GPU, split dispatches on the CPU (fused tracing is
         compile-heavy on the CPU backend for no dispatch win)."""
         from supersampler_tpu.ops.field import (field_entry_init,
                                                 resolve_field,
@@ -1119,7 +1114,7 @@ class _SharedSketchRun:
 
         k, m = self.k, self.m
         P_t = own + self.extra
-        if self.on_tpu:
+        if self.fused_single:
             return scan_resolve_single(jnp.asarray(slab), k, m, P_t,
                                        cap, jnp.int32(L), *self.thr_w)
         ext = jnp.asarray(slab)
@@ -1129,14 +1124,10 @@ class _SharedSketchRun:
         return resolve_field(ft, k, m, cap, entry, *self.thr_w)
 
     # ---- phased launcher (upload -> dispatch -> fetch) ----
-    # The r5 platform model (docs/PERF.md): a fresh session transfers
-    # H2D at GB/s until certain large programs first execute, after
-    # which EVERY H2D costs ~28 ms + ~30 ms/MB for the session's
-    # lifetime; D2H always costs that.  So each superbatch phases ALL
-    # its uploads BEFORE any compute dispatch — a cold CLI process
-    # uploads the whole corpus at line rate — and fetches are stacked
-    # so their ~28 ms stream-blocking floor amortizes over many
-    # records.
+    # Each superbatch phases ALL its uploads before any compute
+    # dispatch, and fetches are stacked so each transfer's fixed cost
+    # amortizes over many records. Whether the phasing pays on a GPU
+    # over PCIe (it gives up copy/compute overlap) is unmeasured.
     def _timed_get(self, stacked):
         from supersampler_tpu.utils.profiling import phase
 
@@ -1258,8 +1249,8 @@ class _SharedSketchRun:
     def _dispatch_entries(self, entries):
         """Phase C+F (launcher thread): dispatch every compute of the
         superbatch in record order, then enqueue the stacked fetches in
-        chunk order (each D2H blocks the in-order stream ~28 ms, so
-        they run after ALL computes)."""
+        chunk order (a D2H blocks the in-order stream, so they run
+        after ALL computes)."""
         from supersampler_tpu.utils.profiling import phase
 
         self._stage_batch()

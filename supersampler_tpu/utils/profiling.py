@@ -2,7 +2,7 @@
 
 The reference's only instrumentation is chrono wall-clock spans around
 comparison and output (reference Comparator.cpp:499-509). This module
-adds the TPU-native equivalents without touching parity output:
+adds device-aware equivalents without touching parity output:
 
 * ``phases`` — a process-wide accumulator of named wall-clock spans
   (`with phase("scan"): ...`); ``report()`` renders totals.

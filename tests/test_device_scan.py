@@ -1,4 +1,4 @@
-"""The TPU scan pipeline is bit-identical to the scalar oracle."""
+"""The device scan pipeline is bit-identical to the scalar oracle."""
 
 import gzip
 import json
@@ -22,7 +22,7 @@ CONFIGS = [
 
 
 @pytest.mark.parametrize("k,m,s,a", CONFIGS)
-def test_tpu_matches_oracle_simple(datadir, k, m, s, a):
+def test_device_matches_oracle_simple(datadir, k, m, s, a):
     sv = float(np.float32(s))
     o = OracleSubsampler(k=k, m=m, s=sv, abundance=a)
     t = TpuSubsampler(k=k, m=m, s=sv, abundance=a)
@@ -36,7 +36,7 @@ def test_tpu_matches_oracle_simple(datadir, k, m, s, a):
 
 
 @pytest.mark.parametrize("dataset", ["edge", "repeat", "big"])
-def test_tpu_matches_oracle_datasets(datadir, dataset):
+def test_device_matches_oracle_datasets(datadir, dataset):
     o = OracleSubsampler(k=31, m=11, s=10.0)
     t = TpuSubsampler(k=31, m=11, s=10.0)
     want = o.sketch_file(datadir[dataset])
@@ -44,8 +44,8 @@ def test_tpu_matches_oracle_datasets(datadir, dataset):
     assert got == want
 
 
-def test_tpu_matches_goldens(datadir, goldendir):
-    """End-to-end: TPU pipeline reproduces the reference binaries."""
+def test_device_matches_goldens(datadir, goldendir):
+    """End-to-end: the device pipeline reproduces the reference binaries."""
     with open(os.path.join(goldendir, "meta.json")) as f:
         meta = json.load(f)
     for cfg in meta["sketches"][:6]:

@@ -201,39 +201,3 @@ def test_field_carry_chain_matches_single():
     assert c1[5] + OWN == want[5]            # last_ev_pos
     assert (c1[6], c1[7], c1[8]) == (want[6], want[7], want[8])
 
-
-def test_mosaic_scan_kernel_parity_interpret():
-    """The fused Mosaic scan kernel (ops/scan_kernel.py) must produce
-    the exact _field_core tables — run here in interpret mode (the CPU
-    suite never executes Mosaic natively; the TPU suite covers the
-    compiled kernel through the engine goldens)."""
-    import numpy as np
-
-    import supersampler_tpu.ops.field as F
-    from supersampler_tpu.ops.scan_kernel import field_core_mosaic
-
-    for seed, (k, m) in enumerate([(31, 11), (21, 9), (13, 11)]):
-        C, P = 512, 1 << 14
-        R = P // C
-        rng = np.random.default_rng(seed)
-        codes = rng.integers(0, 4, P, dtype=np.uint8)
-        first_row = jnp.arange(R) == 0
-        a = F._field_core(jnp.asarray(codes), k, m, P, C, first_row)
-        b = field_core_mosaic(jnp.asarray(codes), k, m, P, C,
-                              first_row, interpret=True)
-        names = ["h0", "cv", "em_r", "ep_r", "eh_r", "sync",
-                 "em", "ep", "er", "eh", "eflag"]
-        for x, y, nm in zip(a, b, names):
-            if nm == "eflag":
-                assert not bool(np.asarray(y).any())
-                continue
-            if hasattr(x, "hi"):
-                w = min(x.hi.shape[1], y.hi.shape[1])
-                assert np.array_equal(np.asarray(x.hi)[:, :w],
-                                      np.asarray(y.hi)[:, :w]), (k, nm)
-                assert np.array_equal(np.asarray(x.lo)[:, :w],
-                                      np.asarray(y.lo)[:, :w]), (k, nm)
-            else:
-                xa, ya = np.asarray(x), np.asarray(y)
-                w = min(xa.shape[-1], ya.shape[-1])
-                assert np.array_equal(xa[..., :w], ya[..., :w]), (k, nm)

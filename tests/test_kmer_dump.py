@@ -75,14 +75,14 @@ def test_kmer_dump_set_parity_vs_reference(tmp_path, monkeypatch):
         [REFBIN, "-i", "g.fa", "-k", "31", "-m", "11", "-s", "50",
          "-p", "ref_", "-a", "1"], check=True, capture_output=True)
     ss = TpuSubsampler(k=31, m=11, s=float(np.float32(50)))
-    write_gzip_exact("tpu_g.gz", ss.sketch_file("g.fa"), 9)
+    write_gzip_exact("ours_g.gz", ss.sketch_file("g.fa"), 9)
     a, b = io.StringIO(), io.StringIO()
     n_ref = dump("ref_g.gz", a)
-    n_tpu = dump("tpu_g.gz", b)
-    assert n_ref == n_tpu
+    n_ours = dump("ours_g.gz", b)
+    assert n_ref == n_ours
     set_a = set(a.getvalue().split())
     set_b = set(b.getvalue().split())
-    assert len(set_a) == n_ref and len(set_b) == n_tpu  # all distinct
+    assert len(set_a) == n_ref and len(set_b) == n_ours  # all distinct
     assert_kmer_sets_quirk_equal(set_a, set_b)
 
 

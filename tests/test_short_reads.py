@@ -41,9 +41,9 @@ def test_reads_corpus_matches_oracle(tmp_path, n, lo, hi, s):
     oracle = OracleSubsampler(k=31, m=11, s=s)
     oracle.log = io.StringIO()
     want = oracle.sketch_file(str(fa))
-    tpu = TpuSubsampler(k=31, m=11, s=s)
-    tpu.log = io.StringIO()
-    got = tpu.sketch_file(str(fa))
+    dev = TpuSubsampler(k=31, m=11, s=s)
+    dev.log = io.StringIO()
+    got = dev.sketch_file(str(fa))
     assert got == want
     # stats counters are part of the parity contract (print_stat,
     # reference SubSampler.cpp:633-665)
@@ -51,7 +51,7 @@ def test_reads_corpus_matches_oracle(tmp_path, n, lo, hi, s):
                  "total_superkmer_number", "selected_kmer_number",
                  "selected_superkmer_number", "nb_mmer_selected",
                  "count_maximal_skmer"):
-        assert getattr(tpu, attr) == getattr(oracle, attr), attr
+        assert getattr(dev, attr) == getattr(oracle, attr), attr
 
 
 def test_mixed_cap_medium_batch(tmp_path):
@@ -68,8 +68,8 @@ def test_mixed_cap_medium_batch(tmp_path):
                     + "\n")
     oracle = OracleSubsampler(k=31, m=11, s=1.0)
     want = oracle.sketch_file(str(fa))
-    tpu = TpuSubsampler(k=31, m=11, s=1.0)
-    got = tpu.sketch_file(str(fa))
+    dev = TpuSubsampler(k=31, m=11, s=1.0)
+    got = dev.sketch_file(str(fa))
     assert got == want
 
 
@@ -84,8 +84,8 @@ def test_legacy_engine_knob_respected(tmp_path):
 
     oracle = OracleSubsampler(k=31, m=11, s=2.0)
     want = oracle.sketch_file(str(fa))
-    tpu = LegacySub(k=31, m=11, s=2.0)
-    got = tpu.sketch_file(str(fa))
+    dev = LegacySub(k=31, m=11, s=2.0)
+    got = dev.sketch_file(str(fa))
     assert got == want
 
 
@@ -95,6 +95,6 @@ def test_reads_small_batch_flush(tmp_path):
     _write_reads(str(fa), random.Random(1), 3, 100, 200, messy=False)
     oracle = OracleSubsampler(k=21, m=9, s=2.0)
     want = oracle.sketch_file(str(fa))
-    tpu = TpuSubsampler(k=21, m=9, s=2.0)
-    got = tpu.sketch_file(str(fa))
+    dev = TpuSubsampler(k=21, m=9, s=2.0)
+    got = dev.sketch_file(str(fa))
     assert got == want

@@ -1,9 +1,8 @@
 """Chain walker (ops/walker.py) vs the pointer-doubling reference path.
 
-The TPU Pallas kernel itself is exercised in interpret mode on a tiny
-input (one grid block — interpret mode costs a Python dispatch per
-serial step); the XLA while_loop fallback (what CPU runs) is checked
-against ops/chain.compact_chain on larger fuzzed inputs.
+The serial while_loop walk (what the CPU runs) is checked against
+ops/chain.compact_chain on fuzzed inputs, and the doubling walk (what
+the GPU runs) against the serial walk, byte for byte.
 """
 
 import numpy as np
@@ -16,7 +15,7 @@ from supersampler_tpu.ops import u64 as U
 from supersampler_tpu.ops.chain import compact_chain
 from supersampler_tpu.ops.minimizer import scan_tables_2d
 from supersampler_tpu.ops.walker import (DeviceChain, make_init5,
-                                         pack_succ, walk_pallas,
+                                         pack_succ, walk_doubling,
                                          walk_xla, _BP, _init5_from_tables)
 
 
@@ -57,23 +56,31 @@ def test_walker_overflow_retry():
         assert np.all(np.asarray(a) == np.asarray(b))
 
 
-@pytest.mark.skipif(jax.default_backend() != "tpu",
-                    reason="compiled Mosaic kernel needs a TPU; interpret "
-                           "mode costs minutes per serial step")
-def test_pallas_kernel_matches_xla_walk():
-    """The compiled Mosaic kernel == the XLA while_loop."""
-    t = _tables(700, 3.0, 11)
-    n = int(t.nxt_pos_a.shape[0])
-    n_pad = ((n + _BP - 1) // _BP) * _BP
-    packed = pack_succ(t, n_pad)
-    args = (packed, _init5_from_tables(t))
-    pe = walk_pallas(*args, interpret=False)
-    xe = walk_xla(*args)
-    # same per-block counts / scalars and the same emitted rows
-    assert int(jnp.sum(pe[3])) == int(xe[3][0])
-    assert np.all(np.asarray(pe[4]) == np.asarray(xe[4]))
-    ncnt = int(xe[3][0])
-    for pi, xi in zip(pe[:3], xe[:3]):
-        # pallas tiles are (n_blocks, BP); single block here
-        assert np.all(np.asarray(pi).reshape(-1)[:ncnt]
-                      == np.asarray(xi).reshape(-1)[:ncnt])
+@pytest.mark.parametrize("L,s,seed,tile", [
+    (700, 3.0, 11, False), (3000, 1.0, 12, False),
+    (5000, 1000.0, 13, False), (6000, 2.0, 14, False),
+    (700, 3.0, 11, True), (3000, 1.0, 12, True), (5000, 1000.0, 13, True),
+    (6000, 2.0, 14, True), (900, 5.0, 15, None),
+])
+def test_doubling_walk_matches_serial_walk(L, s, seed, tile):
+    """walk_doubling (the GPU walk) == walk_xla (the CPU walk) on every
+    output: emit lists, counts and the final state. tile=False walks a
+    whole sequence from its initial election; tile=True walks the first
+    _BP positions entering mid-chain with an open super-k-mer from an
+    earlier tile (the tiled and fallback paths); tile=None enters with
+    the next event already past the walk (an empty walk)."""
+    t = _tables(L, s, seed)
+    if tile is None:
+        packed, init5 = pack_succ(t, _BP), make_init5(_BP + 3, 1, 1, -2, 0)
+    elif tile:
+        packed = pack_succ(t, _BP)
+        init5 = make_init5(37 + seed, seed % 2, 1, -7, 1)
+    else:
+        n = int(t.nxt_pos_a.shape[0])
+        packed = pack_succ(t, ((n + _BP - 1) // _BP) * _BP)
+        init5 = _init5_from_tables(t)
+    want = walk_xla(packed, init5)
+    got = walk_doubling(packed, init5)
+    assert int(want[4][0]) > 0 or tile is None     # n_ev
+    for a, b in zip(want, got):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
